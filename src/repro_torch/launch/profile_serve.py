@@ -5,12 +5,14 @@ batch, times it once with the profiler off, then serves it under
 ``torch.profiler`` and prints: the host-clock prefill and decode times,
 the device-busy share of the profiled batch's wall time (sum of kernel
 times over wall time), and the kernels and the PyTorch operators that take
-the most device time.  Needs a CUDA device.
+the most device time.  Needs a CUDA device.  It takes the flags of
+:mod:`repro_torch.launch.serve`; the batch holds ``--requests`` prompts
+(at most ``--max-batch``) and goes straight to ``generate_batch``, without
+the dispatcher, so ``--mode`` does not apply.  The pipelined batch that
+``chip_smoke.py`` serves:
 
-  PYTHONPATH=src python -m repro_torch.launch.profile_serve
-
-The batch is full-width granite-8b, 8 prompts of 1024 tokens, 16 new
-tokens: the pipelined batch ``chip_smoke.py`` serves.
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch granite-8b \
+      --requests 8 --max-batch 8 --prompt-len 1024 --new-tokens 16
 """
 from __future__ import annotations
 
@@ -25,23 +27,24 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.launch import serve
 
 
-ARCH, BATCH, PROMPT_LEN, NEW_TOKENS, TOP = "granite-8b", 8, 1024, 16, 12
+TOP = 12
 
 
 def _device_us(evt) -> float:
     return float(evt.self_device_time_total)
 
 
-def main() -> dict:
-    if not torch.cuda.is_available():
+def main(argv=None) -> dict:
+    args = serve.parse_args(argv)
+    if not (args.device.startswith("cuda") and torch.cuda.is_available()):
         raise RuntimeError("profile_serve needs a CUDA device")
-    server = serve.build_server(serve.parse_args([
-        "--arch", ARCH, "--prompt-len", str(PROMPT_LEN),
-        "--new-tokens", str(NEW_TOKENS), "--max-batch", str(BATCH),
-        "--device", "cuda"]))
+    if args.requests > args.max_batch:
+        raise ValueError(f"--requests {args.requests} does not fit in one "
+                         f"batch of --max-batch {args.max_batch}")
+    server = serve.build_server(args)
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, server.model.cfg.vocab_size, PROMPT_LEN)
-               .astype(np.int32) for _ in range(BATCH)]
+    prompts = [rng.integers(0, server.model.cfg.vocab_size, args.prompt_len)
+               .astype(np.int32) for _ in range(args.requests)]
     batch = server._pack(prompts)
     try:
         server.generate_batch(batch)                       # warm-up
@@ -67,8 +70,9 @@ def main() -> dict:
         return [{"name": e.key[:90], "calls": e.count,
                  "device_ms": _device_us(e) / 1e3} for e in events[:TOP]]
     out = {
-        "arch": ARCH, "batch": BATCH, "prompt_len": PROMPT_LEN,
-        "new_tokens": NEW_TOKENS, "unprofiled_wall_s": plain_wall,
+        "arch": args.arch, "batch": args.requests,
+        "prompt_len": args.prompt_len, "new_tokens": args.new_tokens,
+        "unprofiled_wall_s": plain_wall,
         "wall_s": wall,
         "prefill_s": server.stats["prefill_s"] - s0["prefill_s"],
         "decode_s": server.stats["decode_s"] - s0["decode_s"],

@@ -16,9 +16,13 @@ from repro_torch.core.engine import AsyncTransferEngine
 from repro_torch.core.policy import ExecutionMode, OffloadPolicy
 from repro_torch.kernels import ops, ref
 
-# the bounds of tests/test_kernels.py
+# fp32: max |kernel - plain|, the bound of tests/test_kernels.py.  bf16:
+# max over rows of max|kernel - plain| / RMS of the plain row, against the
+# plain version on the fp32 upcasts of the same inputs (the kernel computes
+# scores in fp32); the bound of chip_smoke.py, which also reads what a
+# skipped K/V tile gives on the same metric.
 FP32_TOL = 2e-5
-BF16_TOL = 0.1
+BF16_ROW_TOL = 0.05
 
 pytestmark = pytest.mark.cuda
 
@@ -55,10 +59,15 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, s, t, h, kh, hd,
     got = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert ops.flash_attention.LAUNCHES == before + 1
-    want = ref.flash_attention(q, k, v, causal=causal)
-    tol = BF16_TOL if dt == torch.bfloat16 else FP32_TOL
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= tol, err
+    if dt == torch.float32:
+        err = (got - ref.flash_attention(q, k, v, causal=causal)).abs().max()
+        assert err.item() <= FP32_TOL, err
+    else:
+        want = ref.flash_attention(q.float(), k.float(), v.float(),
+                                   causal=causal)
+        dev = (got.float() - want).abs().amax(-1)
+        err = (dev / want.pow(2).mean(-1).sqrt()).max()
+        assert err.item() <= BF16_ROW_TOL, err
 
 
 def test_flash_wrapper_raises_instead_of_falling_back(cuda_device):
