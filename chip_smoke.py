@@ -10,16 +10,19 @@ result line):
 
 1. the card's name and power limit, from ``nvidia-smi``;
 2. build: every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc`` for
-   ``sm_90a`` (timed);
+   ``sm_90a``, all at once (timed);
 3. kernels: each kernel's wrapper on tensors on the card against its plain
-   PyTorch version at the main path's shapes and a few edge cases, with
-   kernel / plain / library timings (CUDA events) and the bound;
-4. reference: the smoke-width model served on the card equals the same
-   model served on the CPU (the path the CPU tests hold against JAX);
-5. serve: full-width granite-8b (36 layers, d_model 4096, bf16, seeded
-   random weights made on the card) through the port's dispatcher and
-   transfer engine — 8 pipelined 1024-token requests, then one sync
-   4096-token request — with every kernel's launch count read around it.
+   PyTorch version at the main paths' shapes and a few edge cases, with
+   kernel / plain / library timings (CUDA events) and the bound: flash
+   attention (K2) at hd 128 and 80, the SSD chunk scan (K3);
+4. reference: each served model at smoke width on the card equals the same
+   model on the CPU (the path the CPU tests hold against JAX);
+5. serve: full-width granite-8b (36 layers, d_model 4096), then full-width
+   zamba2-2.7b (54 Mamba2 layers + a shared attention block applied 9
+   times, d_model 2560), bf16, seeded random weights made on the card,
+   through the port's dispatcher and transfer engine: 8 pipelined
+   1024-token requests, then one sync 4096-token request, with every
+   kernel's launch count set to 0 just before each run and read just after.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``nvidia-smi`` name and power limit; before that one JSON line of kernels.
@@ -27,6 +30,7 @@ The script imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import subprocess
@@ -51,8 +55,19 @@ FP32_TOL = 2e-5
 BF16_ROW_TOL = 0.05
 TILE = 64   # the kernel's K/V tile
 
-ARCH = "granite-8b"
-LAYERS = 36
+# SSD scan: max over y and h_final of |kernel - plain| / (1 + |plain|), so
+# the gate is allclose at rtol = atol = 1e-4, the bound of
+# tests/test_kernels.py.  Every product is fp32 and a bf16 x is upcast on
+# load, so bf16 x is held to the same bound against the plain version on
+# the fp32 upcast of the same x.
+SSD_TOL = 1e-4
+
+# the served models: (name, layers, d_model, launches per prefill batch)
+SERVED = (
+    ("granite-8b", 36, 4096, {"flash_attention": 36, "ssd_scan": 0}),
+    ("zamba2-2.7b", 54, 2560, {"flash_attention": 9, "ssd_scan": 54}),
+)
+KERNELS = ("flash_attention", "ssd_scan")
 
 
 class SmokeFailure(RuntimeError):
@@ -128,20 +143,18 @@ def skipped_tile_err(q, k, v, want) -> float:
     return row_rel_err(o.to(q.dtype), want[:, lo:])
 
 
-def kernel_phase():
+def flash_phase():
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print("kernels: float32 matmuls in full float32 "
-          "(allow_tf32 = False for matmul and cudnn)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [  # (dtype, B, S, T, H, K, hd, causal, timed)
-        ("bfloat16", 8, 1024, 1024, 32, 8, 128, True, True),   # main path
+        ("bfloat16", 8, 1024, 1024, 32, 8, 128, True, True),   # granite
         ("bfloat16", 1, 4096, 4096, 32, 8, 128, True, True),   # sync request
+        ("bfloat16", 8, 1024, 1024, 32, 32, 80, True, True),   # zamba2
+        ("float32", 2, 256, 256, 4, 4, 80, True, False),
         ("bfloat16", 2, 192, 192, 8, 2, 64, True, False),
         ("float32", 2, 256, 256, 4, 2, 16, True, False),
         ("float32", 2, 256, 256, 8, 2, 64, True, False),
@@ -217,8 +230,109 @@ def kernel_phase():
     return results
 
 
-def reference_phase():
-    """Smoke-width granite-8b in fp32 served on the card and on the CPU
+def ssd_bound(b, s, h, p, g, n, q, x_dtype):
+    """Least time for the scan's work on these inputs: x, B, C, dt, da and
+    D read once, y and h_final written once; the operations are the fewer
+    of two forms of the same function, all fp32.  Chunked, per (b, h,
+    chunk of L tokens): L(L+1)P (masked M dtx) + 2LNP (B^T dtx) + 2LNP
+    (C h, none in the first chunk, whose carried state is zero), and per
+    (b, group, chunk) L(L+1)N for C B^T.  Recurrent, per (b, h, token):
+    NP (decay h) + 2NP (h += B (dt x)) + 2NP (C h) + 3P (dt x, D x), less
+    the first token's decay of a zero state."""
+    xb = 2 if x_dtype == "bfloat16" else 4
+    nbytes = (b * s * h * p * (xb + 4) + 4 * b * h * n * p
+              + 8 * b * s * g * n + 8 * b * s * h + 4 * h)
+    lens = [min(q, s - c0) for c0 in range(0, s, q)]
+    chunked = sum(b * h * (L * (L + 1) * p + (4 if c else 2) * L * n * p)
+                  + b * g * L * (L + 1) * n for c, L in enumerate(lens))
+    recurrent = b * h * (s * (5 * n * p + 3 * p) - n * p)
+    flops = min(chunked, recurrent)
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def scaled_err(got, want) -> float:
+    """max |got - want| / (1 + |want|): at most tol iff allclose(rtol=atol=
+    tol)."""
+    return ((got - want).abs() / (1 + want.abs())).max().item()
+
+
+def ssd_phase():
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = [  # (x dtype, B, S, H, P, G, N, chunk, timed)
+        ("float32", 8, 1024, 80, 64, 1, 64, 256, True),    # zamba2 prefill
+        ("bfloat16", 8, 1024, 80, 64, 1, 64, 256, True),   # ... as served
+        ("bfloat16", 1, 4096, 80, 64, 1, 64, 256, True),   # sync request
+        ("float32", 2, 1000, 80, 64, 1, 64, 256, False),   # ragged S
+        ("float32", 2, 192, 8, 16, 2, 16, 64, False),      # G = 2
+        ("float32", 2, 100, 8, 32, 4, 32, 32, False),      # G = 4, ragged
+    ]
+    results = []
+    for dtype, b, s, h, p, g, n, chunk, timed in cases:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        # dt and A spread as in Mamba2 (dt ~ 0.05, A ~ -1): the state
+        # carried from one chunk matters well into the next
+        dt = F.softplus(randn(b, s, h) - 3.0)
+        da = -torch.exp(0.5 * randn(h)) * dt
+        xh = randn(b, s, h, p).to(getattr(torch, dtype))
+        args = (xh, 0.5 * randn(b, s, g, n), 0.5 * randn(b, s, g, n), dt, da,
+                torch.linspace(0.5, 1.5, h, device="cuda"))
+        y, hf = ops.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        plain_args = (xh.float(),) + args[1:]
+        wy, wh = ref.ssd_scan(*plain_args, chunk=chunk)
+        err = max(scaled_err(y, wy), scaled_err(hf, wh))
+        # planted fault: the state carried into the last chunk zeroed
+        c_last = (s - 1) // min(chunk, s) * min(chunk, s)
+        fy, fh = ref.ssd_scan(*(a[:, c_last:] for a in plain_args[:5]),
+                              plain_args[5], chunk=chunk)
+        fault = max(scaled_err(fy, wy[:, c_last:]), scaled_err(fh, wh))
+        row = {"dtype": dtype, "shape": [b, s, h, p, g, n, chunk],
+               "max_abs_err": max((y - wy).abs().max().item(),
+                                  (hf - wh).abs().max().item()),
+               "scaled_err": err, "fault_scaled_err": fault, "tol": SSD_TOL}
+        print(f"kernels: ssd_scan x {dtype} B={b} S={s} H={h} P={p} G={g} "
+              f"N={n} chunk={chunk}: "
+              f"max|kernel-plain|/(1+|plain|) over y and h_final = {err!r} "
+              f"(tol {SSD_TOL}; the last chunk's carried state zeroed reads "
+              f"{fault!r}), max abs {row['max_abs_err']!r}")
+        check(fault > SSD_TOL,
+              f"the ssd gate would pass a dropped carried state: {row}")
+        check(err <= SSD_TOL and y.isfinite().all().item()
+              and hf.isfinite().all().item(),
+              f"ssd_scan disagrees with its plain version: {row}")
+        del wy, wh, fy, fh
+        if timed:
+            fns = {"ms": (lambda: ops.ssd_scan(*args, chunk=chunk), 20),
+                   "plain_ms": (lambda: ref.ssd_scan(*args, chunk=chunk), 3)}
+            # in turns: kernel, plain, then again in reverse
+            times = {key: [] for key in fns}
+            for order in (list(fns), list(fns)[::-1]):
+                for key in order:
+                    times[key].append(time_ms(*fns[key]))
+            row.update({key: min(v) for key, v in times.items()})
+            row["library_ms"] = None    # no one PyTorch call computes it
+            row["bound_ms"], row["bound_by"] = ssd_bound(
+                b, s, h, p, g, n, min(chunk, s), dtype)
+            print(f"kernels: ssd_scan x {dtype} B={b} S={s}: kernel "
+                  f"{row['ms']!r} ms, plain {row['plain_ms']!r} ms, bound "
+                  f"{row['bound_ms']!r} ms ({row['bound_by']}), no library "
+                  "call")
+        results.append(row)
+        del args, plain_args, xh, y, hf
+    torch.cuda.empty_cache()
+    return results
+
+
+def reference_phase(arch: str, prompt_len: int):
+    """``arch`` at smoke width in fp32 served on the card and on the CPU
     with the same weights: equal greedy tokens, close prefill logits."""
     import numpy as np
     import torch
@@ -228,14 +342,14 @@ def reference_phase():
     from repro_torch.models.registry import build_model
     from repro_torch.serve.engine import BatchedServer, ServeConfig
 
-    cfg = get_smoke_config(ARCH)
+    cfg = get_smoke_config(arch)
     cpu_model = build_model(cfg, device="cpu")
     cpu_params = cpu_model.init(0)
     gpu_model = build_model(cfg, device="cuda")
     gpu_params = tree_map(lambda x: x.to("cuda"), cpu_params)
-    scfg = ServeConfig(max_len=48, max_batch=4, max_new_tokens=8)
+    scfg = ServeConfig(max_len=prompt_len + 8, max_batch=4, max_new_tokens=8)
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, 40).astype(np.int32)
+    prompts = [rng.integers(0, cfg.vocab_size, prompt_len).astype(np.int32)
                for _ in range(4)]
     toks = {}
     for name, model, params in (("cpu", cpu_model, cpu_params),
@@ -250,70 +364,80 @@ def reference_phase():
         lg, _ = gpu_model.prefill(gpu_params, {"tokens": torch.from_numpy(
             batch["tokens"]).cuda()})
     err = (lg.cpu() - lc).abs().max().item()
-    print(f"reference: smoke {ARCH} fp32 card vs CPU: prefill logits "
-          f"max|diff| = {err!r}, greedy tokens equal = "
-          f"{bool((toks['cpu'] == toks['cuda']).all())}")
+    print(f"reference: smoke {arch} fp32, {prompt_len}-token prompts, card "
+          f"vs CPU: prefill logits max|diff| = {err!r}, greedy tokens equal "
+          f"= {bool((toks['cpu'] == toks['cuda']).all())}")
     check(err <= 1e-4, f"card prefill logits differ from the CPU's by {err}")
     check((toks["cpu"] == toks["cuda"]).all(),
           "card and CPU greedy tokens differ")
 
 
-def serve_phase(card: str) -> int:
-    """Full-width granite-8b through the serve entry points; returns the
-    flash kernel's launches counted over the driven requests."""
+def serve_phase(arch: str, layers: int, d_model: int, per_batch: dict,
+                card: str) -> dict:
+    """Full-width ``arch`` through the serve entry points; returns each
+    kernel's launches counted over the driven requests."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as serve_mod
 
-    common = ["--arch", ARCH, "--max-batch", "8", "--new-tokens", "16",
-                  "--device", "cuda"]
+    common = ["--arch", arch, "--max-batch", "8", "--new-tokens", "16",
+              "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     server = serve_mod.build_server(serve_mod.parse_args(
         common + ["--prompt-len", "4096"]))
     torch.cuda.synchronize()
     cfg = server.model.cfg
     n_params = cfg.param_count()
-    print(f"serve: built {ARCH} ({cfg.num_layers} layers, d_model "
+    print(f"serve: built {arch} ({cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.param_dtype}, {n_params} parameters) on the "
           f"card in {time.perf_counter() - t0:.1f} s")
-    check(cfg.num_layers == LAYERS and cfg.d_model == 4096,
+    check(cfg.num_layers == layers and cfg.d_model == d_model,
           "not the full-width config")
     runs = [("pipelined", 8, 1024), ("sync", 1, 4096)]
-    launches = 0
+    launches = dict.fromkeys(KERNELS, 0)
     try:
         for mode, n, plen in runs:
             args = serve_mod.parse_args(common + [
                 "--requests", str(n), "--prompt-len", str(plen),
                 "--mode", mode])
             batches0 = server.stats["batches"]
-            ops.flash_attention.LAUNCHES = 0
+            for name in KERNELS:
+                getattr(ops, name).LAUNCHES = 0
             res = serve_mod.drive(server, args)
-            n_launch = ops.flash_attention.LAUNCHES
+            counted = {name: getattr(ops, name).LAUNCHES for name in KERNELS}
             batches = server.stats["batches"] - batches0
-            launches += n_launch
             for o in res["outs"]:
                 check(o.shape == (16,) and o.dtype == np.int32
                       and (o >= 0).all() and (o < cfg.vocab_size).all(),
                       f"bad reply {o!r}")
             check(len(res["outs"]) == n, "missing replies")
-            check(batches >= 1 and n_launch == LAYERS * batches,
-                  f"flash launches {n_launch} != {LAYERS} x {batches} "
-                  "prefill batches")
+            check(batches >= 1, "no prefill batch")
+            for name in KERNELS:
+                check(counted[name] == per_batch[name] * batches,
+                      f"{name} launches {counted[name]} != "
+                      f"{per_batch[name]} x {batches} prefill batches")
+                launches[name] += counted[name]
             dt = res["seconds"]
-            print(f"serve: {mode} {n} x {plen}-token prompts, "
+            print(f"serve: {arch} {mode} {n} x {plen}-token prompts, "
                   f"{res['tokens']} new tokens in {dt!r} s: "
                   f"{res['tokens'] / dt!r} tok/s, {dt / n * 1e3!r} ms/request"
-                  f", {batches} prefill batch(es), flash launches {n_launch}"
-                  f" ({card})")
-        print(f"serve: server stats {server.stats}; peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+                  f", {batches} prefill batch(es), launches {counted} "
+                  f"({card})")
+        print(f"serve: {arch} server stats {server.stats}; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"({card})")
 
-        # same prompt twice -> same tokens
-        p = np.random.default_rng(5).integers(0, cfg.vocab_size, 512).astype(
-            np.int32)
+        # the same prompt twice, a batch of another size between: the same
+        # tokens (state left by an earlier batch must not be read)
+        rng = np.random.default_rng(5)
+        p = rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
         a = server.generate_batch(server._pack([p]))
+        server.generate_batch(server._pack([
+            rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
+            for _ in range(3)]))
         b = server.generate_batch(server._pack([p]))
         check(a.shape == (1, 16) and (a == b).all(),
               "the same prompt served twice gave different tokens")
@@ -322,7 +446,7 @@ def serve_phase(card: str) -> int:
                 "tokens": torch.from_numpy(p[None]).cuda()})
         check(tuple(logits.shape) == (1, 1, cfg.vocab_size)
               and logits.isfinite().all().item(), "non-finite logits")
-        print("serve: deterministic replies, finite logits of shape "
+        print(f"serve: {arch} deterministic replies, finite logits of shape "
               f"{tuple(logits.shape)}")
     finally:
         server.close()
@@ -355,28 +479,51 @@ def main() -> int:
     libs = build.build_all(verbose=True)
     print(f"build: {sorted(libs)} built in {time.perf_counter() - t0:.1f} s")
 
-    checks = kernel_phase()
-    reference_phase()
-    launches = serve_phase(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("kernels: float32 matmuls in full float32 "
+          "(allow_tf32 = False for matmul and cudnn)")
+    flash = flash_phase()
+    ssd = ssd_phase()
+    reference_phase("granite-8b", 40)
+    reference_phase("zamba2-2.7b", 37)     # ragged against the chunk of 8
+    served = {}
+    for arch, layers, d_model, per_batch in SERVED:
+        served[arch] = serve_phase(arch, layers, d_model, per_batch, card)
+        gc.collect()                       # free one model before the next
+        torch.cuda.empty_cache()
 
-    main_row = checks[0]
-    kernels = [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:70",
-        "launches": launches,
-        "launches_per_batch": LAYERS,
-        "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"],
-        "kernel_ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shape": main_row["shape"],
-        "checks": checks,
-    }]
+    def entry(name, source, replaces, row, checks, launches, per_batch):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "launches_per_batch": per_batch,
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"], "dtype": row["dtype"],
+                "shape": row["shape"], "checks": checks}
+
+    def timed(rows, **want):
+        return next(r for r in rows if "ms" in r and all(
+            r[k] == v for k, v in want.items()))
+
+    fa_src = ("src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:70")
+    kernels = [
+        entry("flash_attention", *fa_src,
+              timed(flash, shape=[8, 1024, 1024, 32, 8, 128]),
+              [r for r in flash if r["shape"][5] != 80],
+              served["granite-8b"]["flash_attention"], 36),
+        entry("flash_attention", *fa_src,
+              timed(flash, shape=[8, 1024, 1024, 32, 32, 80]),
+              [r for r in flash if r["shape"][5] == 80],
+              served["zamba2-2.7b"]["flash_attention"], 9),
+        entry("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+              "src/repro/kernels/ssd_scan.py:67",
+              timed(ssd, dtype="bfloat16", shape=[8, 1024, 80, 64, 1, 64,
+                                                  256]),
+              ssd, served["zamba2-2.7b"]["ssd_scan"], 54),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,10 @@
 // hd=128, causal, bf16: 4*B*H*hd*S(S+1)/2 = 68.8 GFLOP -> 69.6 us at
 // 989 TFLOP/s (bf16 tensor cores); bytes q+k+v+o = 168 MB -> 50 us at
 // 3.35 TB/s.  So the bound is ~70 us a layer and it is compute-bound.
+// zamba2-2.7b's shared block at B=8, S=T=1024, H=K=32, hd=80, bf16:
+// 43.0 GFLOP -> 43 us; 168 MB -> 50 us, so bytes bound it at ~50 us.
+// Instantiated for hd 16, 32, 64, 80 and 128 (hd / 16 output columns a
+// thread).
 //
 // Design: right and simple first.  Each of 256 threads computes a 4x4
 // register tile of the 64x64 score tile with fp32 FMAs (4-wide shared loads,
@@ -225,6 +229,7 @@ cudaError_t dispatch_hd(int HD, const void* q, const void* k, const void* v,
     case 16: return launch<T, 16>(q, k, v, o, B, S, Tn, H, KH, causal, scale, st);
     case 32: return launch<T, 32>(q, k, v, o, B, S, Tn, H, KH, causal, scale, st);
     case 64: return launch<T, 64>(q, k, v, o, B, S, Tn, H, KH, causal, scale, st);
+    case 80: return launch<T, 80>(q, k, v, o, B, S, Tn, H, KH, causal, scale, st);
     case 128: return launch<T, 128>(q, k, v, o, B, S, Tn, H, KH, causal, scale, st);
     default: return cudaErrorInvalidValue;
   }

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
 
 def flash_attention(q, k, v, causal: bool = True):
@@ -24,4 +25,17 @@ def flash_attention(q, k, v, causal: bool = True):
     return out
 
 
+def ssd_scan(xh, bm, cm, dt, da, d_skip, chunk: int = 256):
+    """Mamba2 SSD chunk scan: xh (B,S,H,P); bm/cm (B,S,G,N), dt/da (B,S,H),
+    d_skip (H,) fp32 -> (y (B,S,H,P) fp32, h_final (B,H,N,P) fp32), in
+    chunks of ``chunk`` tokens, as the TPU kernel it replaces (a ragged S
+    as ``ssd_chunked``'s identity-step padding)."""
+    if xh.device.type == "cpu":
+        return ref.ssd_scan(xh, bm, cm, dt, da, d_skip, chunk=chunk)
+    out = ssd_scan_cuda(xh, bm, cm, dt, da, d_skip, chunk=chunk)
+    ssd_scan.LAUNCHES += 1
+    return out
+
+
 flash_attention.LAUNCHES = 0
+ssd_scan.LAUNCHES = 0

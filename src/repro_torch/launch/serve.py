@@ -1,9 +1,13 @@
 """Serving CLI: batched generation server with the ROCKET dispatcher.
 
 Port of ``src/repro/launch/serve.py``, with the same flags plus
-``--device`` (default ``cuda``).  Weights and prompts come from seed 0.  Full width on one card:
+``--device`` (default ``cuda``).  Weights and prompts come from seed 0.
+The dense (granite-8b) and hybrid (zamba2-2.7b) families are served.  Full
+width on one card:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
+      --requests 8 --prompt-len 1024 --new-tokens 16 --max-batch 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
       --requests 8 --prompt-len 1024 --new-tokens 16 --max-batch 8
 
 CPU-scale example:

@@ -6,6 +6,9 @@ of tensors, in the JAX package's layouts; numerically sensitive reductions
 """
 from __future__ import annotations
 
+import math
+from typing import NamedTuple, Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -24,6 +27,93 @@ def adtype(cfg: ModelConfig) -> torch.dtype:
 
 def pdtype(cfg: ModelConfig) -> torch.dtype:
     return torch_dtype(cfg.param_dtype)
+
+
+# ---------------------------------------------------------------------------
+# parameter trees: shapes first, then seeded tensors on the device
+# ---------------------------------------------------------------------------
+
+DENSE, ONES, ZEROS = "dense", "ones", "zeros"
+# a draw larger than this many elements is split along its leading axis
+_MAX_DRAW = 1 << 26
+
+
+class Param(NamedTuple):
+    """A leaf of a parameter-shape tree: its shape, its init (``DENSE``:
+    normal x ``scale``, as ``dense_init``; ``ONES``; ``ZEROS``) and its
+    dtype (None: the config's ``param_dtype``)."""
+    shape: tuple
+    kind: str
+    dtype: Optional[torch.dtype] = None
+    scale: float = 0.02
+
+
+def norm_shapes(cfg: ModelConfig) -> dict:
+    p = {"scale": Param((cfg.d_model,), ONES)}
+    if cfg.norm_type == "layernorm":
+        p["bias"] = Param((cfg.d_model,), ZEROS)
+    return p
+
+
+def mlp_shapes(cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_type == "swiglu":
+        return {"wg": Param((d, f), DENSE), "wu": Param((d, f), DENSE),
+                "wd": Param((f, d), DENSE)}
+    return {"wi": Param((d, f), DENSE), "wd": Param((f, d), DENSE)}
+
+
+def embed_shapes(cfg: ModelConfig) -> dict:
+    p = {"embedding": Param((cfg.vocab_size, cfg.d_model), DENSE)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = Param((cfg.d_model, cfg.vocab_size), DENSE)
+    return p
+
+
+def stack_shapes(tree, *lead: int):
+    """``tree`` with leading axes ``lead`` on every leaf (``stack_init``)."""
+    if isinstance(tree, dict):
+        return {key: stack_shapes(v, *lead) for key, v in tree.items()}
+    return tree._replace(shape=(*lead, *tree.shape))
+
+
+def count_params(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    return math.prod(tree.shape)
+
+
+def _draw(out, scale: float, generator, split: bool) -> None:
+    if out.dim() > 2 and (split or out.numel() > _MAX_DRAW):
+        for part in out:
+            _draw(part, scale, generator, False)
+    else:
+        out.copy_(scale * torch.randn(out.shape, generator=generator,
+                                      device=out.device))
+
+
+def init_params(tree, cfg: ModelConfig, device, generator: torch.Generator):
+    """Random parameters for a shape tree, made on ``device``.  Dense
+    weights are drawn in float32 one leading slice at a time (one layer of
+    a stacked weight), so the float32 scratch stays small."""
+    if isinstance(tree, dict):
+        return {key: init_params(v, cfg, device, generator)
+                for key, v in tree.items()}
+    dt = tree.dtype or pdtype(cfg)
+    if tree.kind == ONES:
+        return torch.ones(tree.shape, dtype=dt, device=device)
+    if tree.kind == ZEROS:
+        return torch.zeros(tree.shape, dtype=dt, device=device)
+    out = torch.empty(tree.shape, dtype=dt, device=device)
+    _draw(out, tree.scale, generator, True)
+    return out
+
+
+def take(tree, *index):
+    """The slice ``index`` of every leaf of a stacked tree (views)."""
+    if isinstance(tree, dict):
+        return {key: take(v, *index) for key, v in tree.items()}
+    return tree[index]
 
 
 # ---------------------------------------------------------------------------
@@ -95,7 +185,9 @@ def embed_tokens(params, tokens, cfg: ModelConfig):
     return params["embedding"][tokens.long()].to(adtype(cfg))
 
 
-def unembed(params, x):
-    """Returns logits (..., V) in the activation dtype (untied ``lm_head``,
-    as every dense config has)."""
-    return x @ params["lm_head"].to(x.dtype)              # (D, V)
+def unembed(params, x, cfg: ModelConfig):
+    """Returns logits (..., V) in the activation dtype; a tied config reads
+    the embedding table (V, D), an untied one ``lm_head`` (D, V)."""
+    if cfg.tie_embeddings:
+        return x @ params["embedding"].to(x.dtype).T
+    return x @ params["lm_head"].to(x.dtype)

@@ -22,6 +22,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core.dispatcher import RequestDispatcher
 from repro_torch.core.engine import AsyncTransferEngine
@@ -29,6 +30,10 @@ from repro_torch.core.policy import OffloadPolicy
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import ModelAPI
 from repro_torch.obs import trace as _trace
+
+# the profiler range around a batch's prefill; launch/profile_serve.py splits
+# a batch's device time into prefill and decode by it
+PREFILL_RANGE = "serve.prefill"
 
 
 @dataclass(frozen=True)
@@ -80,10 +85,11 @@ class BatchedServer:
         tt0 = _trace.now() if _trace.TRACE.enabled else 0
         with self._lock, torch.inference_mode():
             t0 = time.perf_counter()
-            dev_batch = self.engine.submit(batch).get()
-            logits, cache = self.model.prefill(self.params, dev_batch,
-                                               cache=self._cache_for(b))
-            self._sync()
+            with record_function(PREFILL_RANGE):
+                dev_batch = self.engine.submit(batch).get()
+                logits, cache = self.model.prefill(self.params, dev_batch,
+                                                   cache=self._cache_for(b))
+                self._sync()
             self.stats["prefill_s"] += time.perf_counter() - t0
 
             t0 = time.perf_counter()

@@ -40,3 +40,20 @@ def test_bf16_values_survive_as_numbers():
     t = to_tensor(x)
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(), x.astype(np.float32))
+
+
+def test_hybrid_tree_round_trip_is_bit_exact():
+    """The nested hybrid tree (``ssm_blocks`` stacked (groups, per, ...),
+    the shared block, a tied embedding) in bf16, with its float32 leaves
+    (A_log, D, dt_bias) kept float32."""
+    cfg = dataclasses.replace(jax_smoke("zamba2-2.7b"), param_dtype="bfloat16")
+    tree = jax.tree.map(np.asarray, jax_build(cfg).init(jax.random.key(1)))
+    params = params_from_jax(tree)
+    assert params["ssm_blocks"]["ssm"]["in_proj"].dtype == torch.bfloat16
+    assert params["ssm_blocks"]["ssm"]["A_log"].dtype == torch.float32
+    assert "lm_head" not in params["embed"]
+    back = dict(jax.tree_util.tree_flatten_with_path(params_to_numpy(params))[0])
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        assert back[path].shape == leaf.shape, path
+        np.testing.assert_array_equal(back[path].view(np.uint8),
+                                      leaf.view(np.uint8), err_msg=str(path))

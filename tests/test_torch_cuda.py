@@ -1,5 +1,5 @@
-"""Tests of the port that need the card: the CUDA kernels against their
-plain versions, and the transfer engine's pinned, side-stream copies.
+"""Tests of the port that need the card: the CUDA kernels (flash attention,
+the SSD chunk scan) against their plain versions, and the transfer engine's pinned, side-stream copies.
 
 This file imports nothing of JAX, so it also runs on a machine without it:
 
@@ -23,6 +23,10 @@ from repro_torch.kernels import ops, ref
 # skipped K/V tile gives on the same metric.
 FP32_TOL = 2e-5
 BF16_ROW_TOL = 0.05
+# the SSD scan: fp32 products throughout, bf16 x upcast on load, so both
+# dtypes are held to the fp32 bound of tests/test_kernels.py against the
+# plain version on the fp32 upcast of x
+SSD_TOL = 1e-4
 
 pytestmark = pytest.mark.cuda
 
@@ -49,6 +53,8 @@ def _qkv(seed, b, s, t, h, kh, hd):
     ("float32", 100, 100, 4, 4, 64, True),      # ragged S and T
     ("float32", 64, 200, 8, 1, 32, False),      # S != T, ragged T
     ("float32", 256, 64, 4, 2, 128, False),     # S > T
+    ("bfloat16", 256, 256, 8, 8, 80, True),     # zamba2's head_dim
+    ("float32", 100, 100, 4, 4, 80, True),
 ])
 def test_flash_kernel_matches_plain(cuda_device, dtype, s, t, h, kh, hd,
                                     causal):
@@ -68,6 +74,34 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, s, t, h, kh, hd,
         dev = (got.float() - want).abs().amax(-1)
         err = (dev / want.pow(2).mean(-1).sqrt()).max()
         assert err.item() <= BF16_ROW_TOL, err
+
+
+@pytest.mark.parametrize("dtype,b,s,h,p,g,n,chunk", [
+    ("float32", 2, 512, 8, 64, 1, 64, 256),
+    ("bfloat16", 2, 512, 8, 64, 1, 64, 256),
+    ("float32", 2, 1000, 4, 64, 1, 64, 256),     # ragged S
+    ("float32", 1, 300, 8, 16, 2, 16, 64),       # G = 2, ragged
+    ("float32", 2, 96, 8, 32, 4, 32, 32),        # G = 4
+    ("float32", 2, 37, 4, 16, 2, 16, 8),         # the smoke widths
+])
+def test_ssd_kernel_matches_plain(cuda_device, dtype, b, s, h, p, g, n,
+                                  chunk):
+    rng = np.random.default_rng(s)
+    dt = np.logaddexp(0.0, rng.standard_normal((b, s, h)) - 3.0)
+    da = -np.exp(0.5 * rng.standard_normal(h)) * dt
+    args = [torch.from_numpy(a.astype(np.float32)).to(cuda_device) for a in (
+        rng.standard_normal((b, s, h, p)),
+        0.5 * rng.standard_normal((b, s, g, n)),
+        0.5 * rng.standard_normal((b, s, g, n)),
+        dt, da, np.linspace(0.5, 1.5, h))]
+    args[0] = args[0].to(getattr(torch, dtype))
+    before = ops.ssd_scan.LAUNCHES
+    y, hf = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.LAUNCHES == before + 1
+    wy, wh = ref.ssd_scan(args[0].float(), *args[1:], chunk=chunk)
+    torch.testing.assert_close(y, wy, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(hf, wh, rtol=SSD_TOL, atol=SSD_TOL)
 
 
 def test_flash_wrapper_raises_instead_of_falling_back(cuda_device):

@@ -26,6 +26,7 @@ SHAPES = [   # (s, t, h, kh, hd, causal) of tests/test_kernels.py
     (128, 128, 4, 2, 64, True),
     (64, 128, 8, 1, 32, False),
     (256, 256, 2, 2, 128, True),
+    (128, 128, 4, 4, 80, True),     # zamba2's shared block: hd 2560/32
 ]
 
 
