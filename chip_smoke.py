@@ -15,9 +15,19 @@ result line):
    PyTorch version at the main paths' shapes and a few edge cases, with
    kernel / plain / library timings (CUDA events) and the bound: flash
    attention (K2) at hd 128 and 80, the SSD chunk scan (K3);
-4. reference: each served model at smoke width on the card equals the same
+4. offload: the offload copy (K1) on fp32 slabs of 1, 16, 64 and 256 MiB
+   (and bf16 ones at 256 MiB) at ring depths 1, 2 and 4 with the fused sum
+   on and off, held bit for bit against its plain version, its sum against
+   the fp64 sum, two launches against each other, bad inputs raising; its
+   times per size and depth beside the bound, the plain version and the
+   library calls; then the offload path itself
+   (``repro_torch.launch.offload_modes`` at the 256 MiB slab: calibration,
+   the tier-1 engine in each mode, the size threshold, K1 over mode x
+   injection), with every kernel's launch count set to 0 just before and
+   read just after;
+5. reference: each served model at smoke width on the card equals the same
    model on the CPU (the path the CPU tests hold against JAX);
-5. serve: full-width granite-8b (36 layers, d_model 4096), then full-width
+6. serve: full-width granite-8b (36 layers, d_model 4096), then full-width
    zamba2-2.7b (54 Mamba2 layers + a shared attention block applied 9
    times, d_model 2560), bf16, seeded random weights made on the card,
    through the port's dispatcher and transfer engine: 8 pipelined
@@ -62,12 +72,29 @@ TILE = 64   # the kernel's K/V tile
 # the fp32 upcast of the same x.
 SSD_TOL = 1e-4
 
+# offload copy (K1): y is one fp32 multiply by the fp32 scale and a
+# round-to-nearest-even cast in the kernel and in the plain version, so it
+# is held bit for bit (max abs 0).  The sum is added in another order: its
+# error is |s - s64| / sum |x * scale|, s64 the fp64 sum of the same fp32
+# products; a sum that loses one 256-row block must read above the limit.
+OFFLOAD_SUM_TOL = 1e-5
+OFFLOAD_SCALE = 0.1                # not exact in binary
+OFFLOAD_COLS = 1024
+OFFLOAD_ROWS = (256, 4096, 16384, 65536)   # fp32 1, 16, 64, 256 MiB
+OFFLOAD_PAIRS = (("float32", "bfloat16"), ("float32", "float32"),
+                 ("bfloat16", "float32"), ("bfloat16", "bfloat16"))
+OFFLOAD_DEPTHS = (1, 2, 4)
+OFFLOAD_PATH_LAUNCHES = 6          # 3 modes x inject off / on
+COLD_BYTES = 128 << 20             # inputs cycled past the 50 MB L2
+
 # the served models: (name, layers, d_model, launches per prefill batch)
 SERVED = (
-    ("granite-8b", 36, 4096, {"flash_attention": 36, "ssd_scan": 0}),
-    ("zamba2-2.7b", 54, 2560, {"flash_attention": 9, "ssd_scan": 54}),
+    ("granite-8b", 36, 4096,
+     {"flash_attention": 36, "ssd_scan": 0, "offload_copy": 0}),
+    ("zamba2-2.7b", 54, 2560,
+     {"flash_attention": 9, "ssd_scan": 54, "offload_copy": 0}),
 )
-KERNELS = ("flash_attention", "ssd_scan")
+KERNELS = ("flash_attention", "ssd_scan", "offload_copy")
 
 
 class SmokeFailure(RuntimeError):
@@ -88,8 +115,9 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events,
-    after a warm-up)."""
+    """Mean device time of ``fn`` over ``iters`` launches issued back to
+    back (CUDA events, after a warm-up): the launches are queued behind a
+    sleep kernel, so host time between them is not counted."""
     import torch
 
     for _ in range(2):
@@ -97,6 +125,7 @@ def time_ms(fn, iters: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(iters * 4e5))     # ~0.2 ms a launch to queue
     start.record()
     for _ in range(iters):
         fn()
@@ -331,6 +360,188 @@ def ssd_phase():
     return results
 
 
+def offload_bound(n: int, in_dtype: str, out_dtype: str, inject: bool):
+    """Least time for y = cast(x * scale) over n elements (+ the sum): x
+    read once, y (and the sum) written once; n multiplies (+ n adds) at
+    the fp32 rate.  Returns (ms, bound_by, bytes)."""
+    size = {"float32": 4, "bfloat16": 2}
+    nbytes = n * (size[in_dtype] + size[out_dtype]) + (4 if inject else 0)
+    flops = n * (2 if inject else 1)
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", nbytes)
+
+
+def offload_phase(card: str) -> dict:
+    """K1 against its plain version and timed, then the offload path.
+    Returns the kernels-line fields of the main shape, the checks'
+    summary and the path's launches."""
+    import itertools
+
+    import torch
+
+    from repro_torch.core.policy import OffloadPolicy
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.offload_copy import offload_copy_cuda
+    from repro_torch.launch import offload_modes
+
+    def bits(t):
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+    def gbps(nbytes, ms):
+        return nbytes / ms / 1e6
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    scale = OFFLOAD_SCALE
+    rows_out, worst_sum, least_fault, main = [], 0.0, float("inf"), None
+    for rows in OFFLOAD_ROWS:
+        is_main = rows == OFFLOAD_ROWS[-1]
+        x32 = torch.randn(rows, OFFLOAD_COLS, generator=gen,
+                          device="cuda") + 0.5      # N(0.5, 1)
+        slabs = {"float32": x32, "bfloat16": x32.to(torch.bfloat16)}
+        for in_dt, out_dt in OFFLOAD_PAIRS if is_main else OFFLOAD_PAIRS[:2]:
+            x, out = slabs[in_dt], getattr(torch, out_dt)
+            n = x.numel()
+            want, _ = ref.offload_copy(x, scale=scale, out_dtype=out)
+            v = (x.float() * scale).double()
+            s64, mag = v.sum().item(), v.abs().sum().item()
+            mid = rows // 2 // 256 * 256
+            fault = abs(v[mid:mid + 256].sum().item()) / mag
+            del v
+            check(fault > OFFLOAD_SUM_TOL,
+                  f"the sum gate would pass a lost 256-row block: {fault!r}")
+            least_fault = min(least_fault, fault)
+            # timed on inputs cycled past the L2, so each launch reads cold
+            copies = [x] + [x.clone() for _ in range(
+                -(-COLD_BYTES // (n * x.element_size())) - 1)]
+            cyc = itertools.cycle(copies)
+            iters = 20 if rows >= 16384 else 50
+            ybuf = torch.empty(x.shape, dtype=out, device="cuda")
+            base = {}
+            for inject in (False, True):
+                def plain():
+                    return ref.offload_copy(next(cyc), scale=scale,
+                                            out_dtype=out, inject=inject)
+
+                def library():
+                    xi = next(cyc)
+                    torch.mul(xi, scale, out=ybuf)
+                    if inject:
+                        xi.sum(dtype=torch.float32)
+
+                base[inject] = {"plain_ms": time_ms(plain, iters),
+                                "library_ms": time_ms(library, iters)}
+            memcpy_ms = (time_ms(lambda: ybuf.copy_(next(cyc)), iters)
+                         if in_dt == out_dt == "float32" else None)
+            for depth in OFFLOAD_DEPTHS:
+                for inject in (False, True):
+                    y, s = offload_copy_cuda(x, scale, out, depth, 256,
+                                             inject)
+                    y2, s2 = offload_copy_cuda(x, scale, out, depth, 256,
+                                               inject)
+                    torch.cuda.synchronize()
+                    equal = torch.equal(bits(y), bits(want))
+                    same = torch.equal(bits(y2), bits(y)) and (
+                        not inject or torch.equal(bits(s2), bits(s)))
+                    err = (y.float() - want.float()).abs().max().item()
+                    sum_err = (abs(s.item() - s64) / mag if inject
+                               else None)
+                    del y, y2
+                    bound, bound_by, nbytes = offload_bound(n, in_dt, out_dt,
+                                                            inject)
+                    ms = time_ms(lambda: offload_copy_cuda(
+                        next(cyc), scale, out, depth, 256, inject), iters)
+                    row = {"rows": rows, "dtype": f"{in_dt}->{out_dt}",
+                           "depth": depth, "inject": inject,
+                           "bit_equal": equal, "deterministic": same,
+                           "max_abs_err": err, "sum_rel_err": sum_err,
+                           "fault_rel_err": fault if inject else None,
+                           "ms": ms, "gbps": gbps(nbytes, ms),
+                           "bound_ms": bound, "bound_by": bound_by,
+                           **base[inject], "memcpy_ms": memcpy_ms}
+                    print(f"offload: K1 {rows}x{OFFLOAD_COLS} {in_dt}->"
+                          f"{out_dt} depth {depth} inject {inject}: bit-"
+                          f"equal {equal}, max abs {err!r}, sum error "
+                          f"{sum_err!r} (tol {OFFLOAD_SUM_TOL}; a lost "
+                          f"block reads {fault!r}), repeat-equal {same}; "
+                          f"kernel {ms!r} ms ({row['gbps']!r} GB/s), bound "
+                          f"{bound!r} ms ({gbps(nbytes, bound)!r} GB/s), "
+                          f"plain {row['plain_ms']!r} ms, library "
+                          f"{row['library_ms']!r} ms, memcpy {memcpy_ms!r} "
+                          f"ms ({card})")
+                    check(equal and err == 0 and same and (
+                        not inject or sum_err <= OFFLOAD_SUM_TOL),
+                        f"offload_copy disagrees with its plain version: "
+                        f"{row}")
+                    if inject:
+                        worst_sum = max(worst_sum, sum_err)
+                    if is_main and (in_dt, out_dt, depth, inject) == (
+                            "float32", "bfloat16", 2, False):
+                        main = row
+                    rows_out.append(row)
+            del copies, cyc, want, ybuf
+        del x32, slabs
+        torch.cuda.empty_cache()
+
+    # bad inputs raise, and the wrapper does not fall back
+    bad = {"misaligned": torch.zeros(4 * 1024 + 1, device="cuda")[1:].view(
+               4, 1024),
+           "ragged": torch.zeros(300, 1024, device="cuda"),
+           "not 16-byte": torch.zeros(1, 3, device="cuda")}
+    for name, t in bad.items():
+        for fn in (lambda: offload_copy_cuda(t, block_rows=256),
+                   lambda: ops.offload_copy(t, policy=OffloadPolicy(
+                       offload_threshold_bytes=1))):
+            try:
+                fn()
+            except ValueError:
+                continue
+            raise SmokeFailure(f"a {name} input did not raise ValueError")
+    print(f"offload: {', '.join(bad)} inputs raise ValueError")
+
+    # the path: the port of examples/offload_modes.py at the 256 MiB slab
+    for name in KERNELS:
+        getattr(ops, name).LAUNCHES = 0
+    ops.offload_copy.INLINE = 0
+    res = offload_modes.run(device="cuda", rows=OFFLOAD_ROWS[-1],
+                            cols=OFFLOAD_COLS)
+    torch.cuda.synchronize()
+    counted = {name: getattr(ops, name).LAUNCHES for name in KERNELS}
+    inline = ops.offload_copy.INLINE
+    th = res["threshold"]
+    print(f"offload: path launches {counted}, inline {inline}; calibrated "
+          f"{res['calibration']}; tier-1 ms per 16 MB transfer "
+          f"{ {r['mode']: r['ms_per_transfer'] for r in res['engine']} }; "
+          f"threshold {th} ({card})")
+    check(counted == {**dict.fromkeys(KERNELS, 0),
+                      "offload_copy": OFFLOAD_PATH_LAUNCHES},
+          f"the offload path launched {counted}, not "
+          f"{OFFLOAD_PATH_LAUNCHES} offload copies and nothing else")
+    check(inline == th["kernel_inline"] == 1 and th["kernel_inline_ok"]
+          and (th["inline"], th["offloaded"]) == (1, 1),
+          f"the threshold step: {th}, INLINE rose by {inline}")
+    check(len(res["kernel"]) == OFFLOAD_PATH_LAUNCHES
+          and all(r["allclose"] for r in res["kernel"]),
+          f"an offload path row disagrees: {res['kernel']}")
+    check(all(r["offloaded"] == (0 if r["mode"] == "sync" else 8)
+              and r["submitted"] == 8 for r in res["engine"]),
+          f"tier-1 engine counters: {res['engine']}")
+    torch.cuda.empty_cache()
+    checks = [{"configs": len(rows_out),
+               "bit_equal_all": all(r["bit_equal"] for r in rows_out),
+               "deterministic_all": all(r["deterministic"]
+                                        for r in rows_out),
+               "max_sum_rel_err": worst_sum, "sum_tol": OFFLOAD_SUM_TOL,
+               "min_fault_rel_err": least_fault,
+               "bad_inputs_raised": sorted(bad)},
+              *({k: r[k] for k in ("rows", "dtype", "depth", "inject",
+                                   "ms", "gbps")} for r in rows_out
+                if r["rows"] == OFFLOAD_ROWS[-1]
+                and r["dtype"].startswith("float32"))]
+    return {"main": {**main, "shape": [OFFLOAD_ROWS[-1], OFFLOAD_COLS]},
+            "checks": checks, "launches": counted["offload_copy"]}
+
+
 def reference_phase(arch: str, prompt_len: int):
     """``arch`` at smoke width in fp32 served on the card and on the CPU
     with the same weights: equal greedy tokens, close prefill logits."""
@@ -485,6 +696,7 @@ def main() -> int:
           "(allow_tf32 = False for matmul and cudnn)")
     flash = flash_phase()
     ssd = ssd_phase()
+    offload = offload_phase(card)
     reference_phase("granite-8b", 40)
     reference_phase("zamba2-2.7b", 37)     # ragged against the chunk of 8
     served = {}
@@ -523,6 +735,10 @@ def main() -> int:
               timed(ssd, dtype="bfloat16", shape=[8, 1024, 80, 64, 1, 64,
                                                   256]),
               ssd, served["zamba2-2.7b"]["ssd_scan"], 54),
+        entry("offload_copy", "src/repro_torch/kernels/csrc/offload_copy.cu",
+              "src/repro/kernels/offload_copy.py:93", offload["main"],
+              offload["checks"], offload["launches"],
+              OFFLOAD_PATH_LAUNCHES),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

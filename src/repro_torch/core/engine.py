@@ -99,14 +99,18 @@ class AsyncTransferEngine:
 
     The staging copy and the device transfer run on the shared
     :class:`~repro_torch.core.copyengine.CopyEngine` under the ``"stage"``
-    tag; ``copy_engine`` overrides the shared instance for tests.
+    tag; ``copy_engine`` overrides the shared instance for tests;
+    ``latency`` is the model the completion waits defer by (a calibrated
+    one from :func:`~repro_torch.core.latency.calibrate`, else the paper's
+    constants).
     """
 
     def __init__(self, policy: OffloadPolicy = OffloadPolicy(),
-                 copy_engine: Optional[CopyEngine] = None, device="cuda"):
+                 copy_engine: Optional[CopyEngine] = None, device="cuda",
+                 latency: Optional[LatencyModel] = None):
         self.device = resolve_device(device)
         self.policy = policy
-        self.latency = LatencyModel()
+        self.latency = latency or LatencyModel()
         cuda = self.device.type == "cuda"
         self.pool = BufferPool(alloc=_pinned_empty if cuda else np.empty)
         self.stats = EngineStats()
@@ -205,3 +209,9 @@ class AsyncTransferEngine:
         """Complete outstanding transfers (the shared copy engine itself
         stays up — it serves every other datapath in the process)."""
         self.drain()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -8,9 +8,51 @@ main path went through.
 """
 from __future__ import annotations
 
+from repro_torch.core.policy import ExecutionMode, OffloadPolicy
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.offload_copy import offload_copy_cuda, ring_depth
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+
+def mode_depth(mode, depth: int = 2) -> int:
+    """The copy ring's depth for an execution mode, as the reference's
+    ``ops.offload_copy`` picks it: sync 1, async 2, pipelined
+    ``max(depth, 2)`` (``depth`` is the call's argument, not the policy's
+    ``pipeline_depth``)."""
+    return {"sync": 1, "async": 2, "pipelined": max(depth, 2)}[
+        ExecutionMode(mode).value]
+
+
+def offload_copy(x, scale: float = 1.0, out_dtype=None, depth: int = 2,
+                 block_rows: int = 256, inject: bool = False,
+                 policy: OffloadPolicy | None = None):
+    """Streaming copy/transform ``y = cast(x * scale, out_dtype)`` of a 2-D
+    slab under the offload policy; returns ``(y, sum of x * scale or
+    None)``.
+
+    Below ``policy.should_offload`` (or with ``Device.INLINE``) the copy
+    stays inline: the plain version on x's device, counted in ``INLINE``
+    (the paper's CPU-memcpy choice, made by the policy).  Otherwise the
+    mode picks the ring's depth (:func:`mode_depth`) and the slab must meet
+    the kernel's contract; a CUDA tensor launches the kernel (counted in
+    ``LAUNCHES``) or raises, a CPU tensor takes the plain version.  The sum
+    is taken when ``inject or policy.injection_enabled()``."""
+    pol = policy or OffloadPolicy()
+    inject = inject or pol.injection_enabled()
+    if not pol.should_offload(x.numel() * x.element_size()):
+        offload_copy.INLINE += 1
+        return ref.offload_copy(x, scale=scale, out_dtype=out_dtype,
+                                inject=inject)
+    ring = mode_depth(pol.mode, depth)
+    if x.device.type == "cpu":
+        ring_depth(x.shape, ring, block_rows)
+        return ref.offload_copy(x, scale=scale, out_dtype=out_dtype,
+                                inject=inject)
+    out = offload_copy_cuda(x, scale=scale, out_dtype=out_dtype, depth=ring,
+                            block_rows=block_rows, inject=inject)
+    offload_copy.LAUNCHES += 1
+    return out
 
 
 def flash_attention(q, k, v, causal: bool = True):
@@ -37,5 +79,7 @@ def ssd_scan(xh, bm, cm, dt, da, d_skip, chunk: int = 256):
     return out
 
 
+offload_copy.LAUNCHES = 0
+offload_copy.INLINE = 0
 flash_attention.LAUNCHES = 0
 ssd_scan.LAUNCHES = 0

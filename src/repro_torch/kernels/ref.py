@@ -1,13 +1,21 @@
 """Plain PyTorch versions of the port's kernels (the CPU path and the
 on-card yardstick each CUDA kernel is held against).
 
-Counterpart of ``src/repro/kernels/ref.py`` (flash part only).
+Counterpart of ``src/repro/kernels/ref.py``.
 """
 from __future__ import annotations
 
 import torch
 
 NEG_INF = -1e30
+
+
+def offload_copy(x, scale: float = 1.0, out_dtype=None, inject: bool = False):
+    """``y = x * scale`` in fp32, cast to ``out_dtype`` (default x's); with
+    ``inject`` also the fp32 sum of ``x * scale``.  Returns ``(y, sum as a
+    0-d fp32 tensor or None)``."""
+    v = x.float() * scale
+    return v.to(out_dtype or x.dtype), (v.sum() if inject else None)
 
 
 def flash_attention(q, k, v, causal: bool = True):

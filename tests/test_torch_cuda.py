@@ -1,5 +1,6 @@
 """Tests of the port that need the card: the CUDA kernels (flash attention,
-the SSD chunk scan) against their plain versions, and the transfer engine's pinned, side-stream copies.
+the SSD chunk scan, the offload copy) against their plain versions, and the
+transfer engine's pinned, side-stream copies.
 
 This file imports nothing of JAX, so it also runs on a machine without it:
 
@@ -13,8 +14,9 @@ import torch
 
 from repro_torch.core.copyengine import CopyEngine
 from repro_torch.core.engine import AsyncTransferEngine
-from repro_torch.core.policy import ExecutionMode, OffloadPolicy
+from repro_torch.core.policy import Device, ExecutionMode, OffloadPolicy
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.offload_copy import offload_copy_cuda
 
 # fp32: max |kernel - plain|, the bound of tests/test_kernels.py.  bf16:
 # max over rows of max|kernel - plain| / RMS of the plain row, against the
@@ -27,6 +29,13 @@ BF16_ROW_TOL = 0.05
 # dtypes are held to the fp32 bound of tests/test_kernels.py against the
 # plain version on the fp32 upcast of x
 SSD_TOL = 1e-4
+# the offload copy: y bit-equal to the plain version (one fp32 multiply and
+# a round-to-nearest-even cast in both); the sum, added in another order,
+# within 1e-5 of sum |x * scale| of the fp64 sum of the same products (the
+# bound of chip_smoke.py)
+OFFLOAD_SUM_TOL = 1e-5
+OFFLOAD_PAIRS = [("float32", "float32"), ("float32", "bfloat16"),
+                 ("bfloat16", "float32"), ("bfloat16", "bfloat16")]
 
 pytestmark = pytest.mark.cuda
 
@@ -131,3 +140,71 @@ def test_engine_lands_every_batch(cuda_device, mode):
         assert got["tokens"].is_cuda
         np.testing.assert_array_equal(got["tokens"].cpu().numpy(),
                                       src["tokens"])
+
+
+def _offload_slab(dev, dtype, rows, cols, seed=3):
+    """N(0.5, 1): a non-zero mean, so a lost block shows in the sum."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((rows, cols)) + 0.5).astype(np.float32)
+    return torch.from_numpy(x).to(dev).to(getattr(torch, dtype))
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("rows,cols,block_rows", [
+    (4096, 1024, 256),      # 16 MiB fp32: 7-8 stages a CTA
+    (96, 136, 32),          # 4 CTAs, a short last stage
+    (256, 128, 256),        # one stage: a ring deeper than the range
+])
+@pytest.mark.parametrize("depth", [1, 2, 4, 8])
+@pytest.mark.parametrize("in_dtype,out_dtype", OFFLOAD_PAIRS)
+def test_offload_kernel_matches_plain(cuda_device, in_dtype, out_dtype, depth,
+                                      rows, cols, block_rows):
+    x = _offload_slab(cuda_device, in_dtype, rows, cols)
+    out = getattr(torch, out_dtype)
+    want, _ = ref.offload_copy(x, scale=0.1, out_dtype=out)
+    v = (x.float() * 0.1).double()
+    s64, mag = v.sum().item(), v.abs().sum().item()
+    for inject in (False, True):
+        y, s = offload_copy_cuda(x, scale=0.1, out_dtype=out, depth=depth,
+                                 block_rows=block_rows, inject=inject)
+        y2, s2 = offload_copy_cuda(x, scale=0.1, out_dtype=out, depth=depth,
+                                   block_rows=block_rows, inject=inject)
+        torch.cuda.synchronize()
+        assert y.dtype == out and torch.equal(_bits(y), _bits(want))
+        assert torch.equal(_bits(y2), _bits(y))             # deterministic
+        if inject:
+            assert abs(s.item() - s64) / mag <= OFFLOAD_SUM_TOL
+            assert torch.equal(_bits(s2), _bits(s))
+        else:
+            assert s is None and s2 is None
+
+
+def test_offload_wrapper_launches_or_stays_inline(cuda_device):
+    x = _offload_slab(cuda_device, "float32", 512, 256)
+    launches, inline = ops.offload_copy.LAUNCHES, ops.offload_copy.INLINE
+    y, s = ops.offload_copy(x, scale=1.5, policy=OffloadPolicy(
+        mode=ExecutionMode.SYNC, offload_threshold_bytes=1))
+    torch.cuda.synchronize()
+    assert ops.offload_copy.LAUNCHES == launches + 1 and s is not None
+    assert torch.equal(y, ref.offload_copy(x, scale=1.5)[0])
+    for pol in (OffloadPolicy(offload_threshold_bytes=1 << 30),
+                OffloadPolicy(device=Device.INLINE, offload_threshold_bytes=1)):
+        ops.offload_copy(x, scale=1.5, policy=pol)
+    assert ops.offload_copy.LAUNCHES == launches + 1
+    assert ops.offload_copy.INLINE == inline + 2
+
+
+@pytest.mark.parametrize("make", [
+    lambda dev: torch.zeros(300, 128, device=dev),          # ragged R
+    lambda dev: torch.zeros(4 * 128 + 1, device=dev)[1:].view(4, 128),
+    lambda dev: torch.zeros(4, 128, device=dev, dtype=torch.float16),
+])
+def test_offload_wrapper_raises_instead_of_falling_back(cuda_device, make):
+    x = make(cuda_device)
+    launches = ops.offload_copy.LAUNCHES
+    with pytest.raises((ValueError, TypeError)):
+        ops.offload_copy(x, policy=OffloadPolicy(offload_threshold_bytes=1))
+    assert ops.offload_copy.LAUNCHES == launches
