@@ -14,7 +14,11 @@ result line):
 3. kernels: each kernel's wrapper on tensors on the card against its plain
    PyTorch version at the main paths' shapes and a few edge cases, with
    kernel / plain / library timings (CUDA events) and the bound: flash
-   attention (K2) at hd 128 and 80, the SSD chunk scan (K3);
+   attention (K2) at hd 128 and 80, the SSD chunk scan (K3).  K2 has two
+   kernels, fixed by (dtype, hd): the tensor-core one (bf16 at hd 64, 80,
+   128: ragged, S != T, MHA and GQA cases) and the CUDA-core one (fp32,
+   bf16 at hd 16, 32); at the three timed shapes the CUDA-core kernel is
+   also gated and timed on the same bf16 inputs;
 4. offload: the offload copy (K1) on fp32 slabs of 1, 16, 64 and 256 MiB
    (and bf16 ones at 256 MiB) at ring depths 1, 2 and 4 with the fused sum
    on and off, held bit for bit against its plain version, its sum against
@@ -32,7 +36,9 @@ result line):
    times, d_model 2560), bf16, seeded random weights made on the card,
    through the port's dispatcher and transfer engine: 8 pipelined
    1024-token requests, then one sync 4096-token request, with every
-   kernel's launch count set to 0 just before each run and read just after.
+   kernel's launch count (and K2's count per kernel) set to 0 just before
+   each run and read just after: every prefill attention goes through the
+   tensor-core K2.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``nvidia-smi`` name and power limit; before that one JSON line of kernels.
@@ -153,22 +159,26 @@ def row_rel_err(got, want) -> float:
     return (dev / want.pow(2).mean(-1).sqrt()).max().item()
 
 
-def skipped_tile_err(q, k, v, want) -> float:
+def skipped_tile_err(q, k, v, want, causal=True) -> float:
     """The row error of a planted fault, for the bf16 gate to be set below:
-    the last 64 query rows skip the K/V tile in the middle of the sequence
-    (plain fp32 on the same inputs, causal, rounded to q's dtype)."""
+    the last 64 query rows (all, if fewer) skip the 64 keys in the middle
+    of the key sequence (plain fp32 on the same inputs, rounded to q's
+    dtype)."""
     import torch
 
     b, s, h, hd = q.shape
-    kh = k.shape[2]
-    lo, tile = s - TILE, (s // TILE) // 2 * TILE
-    qg = q[:, lo:].float().reshape(b, TILE, kh, h // kh, hd)
+    kh, t = k.shape[2], k.shape[1]
+    lo, tile = max(s - TILE, 0), (t // TILE) // 2 * TILE
+    qg = q[:, lo:].float().reshape(b, s - lo, kh, h // kh, hd)
     scores = torch.einsum("bskge,btke->bkgst", qg, k.float()) / hd ** 0.5
     qpos = torch.arange(lo, s, device=q.device)[:, None]
-    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
-    hidden = (kpos > qpos) | ((kpos >= tile) & (kpos < tile + TILE))
+    kpos = torch.arange(t, device=q.device)[None, :]
+    hidden = (kpos >= tile) & (kpos < tile + TILE)
+    if causal:
+        hidden = hidden | (kpos > qpos)
     w = torch.softmax(scores.masked_fill(hidden, -1e30), dim=-1)
-    o = torch.einsum("bkgst,btke->bskge", w, v.float()).reshape(b, TILE, h, hd)
+    o = torch.einsum("bkgst,btke->bskge", w, v.float()).reshape(
+        b, s - lo, h, hd)
     return row_rel_err(o.to(q.dtype), want[:, lo:])
 
 
@@ -177,6 +187,9 @@ def flash_phase():
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import (WGMMA_HEAD_DIMS,
+                                                     flash_attention_cuda,
+                                                     variant)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [  # (dtype, B, S, T, H, K, hd, causal, timed)
@@ -191,16 +204,30 @@ def flash_phase():
         ("float32", 2, 64, 200, 8, 1, 32, False, False),       # S != T
         ("float32", 1, 100, 100, 4, 4, 128, True, False),      # ragged S, T
     ]
+    # the tensor-core kernel's edges: ragged S = T (causal only at S == T),
+    # S < T and S > T, MHA (H = K) and GQA (H = 4K), at each of its hd;
+    # the last has more q tiles than the card has SMs, so a block walks
+    # several (ragged) items
+    for hd in WGMMA_HEAD_DIMS:
+        cases += [("bfloat16", 2, 200, 200, 8, 8, hd, True, False),
+                  ("bfloat16", 2, 200, 200, 8, 2, hd, True, False),
+                  ("bfloat16", 2, 64, 200, 8, 2, hd, False, False),
+                  ("bfloat16", 2, 256, 64, 8, 8, hd, False, False),
+                  ("bfloat16", 2, 1000, 1000, 16, 4, hd, True, False)]
     results = []
     for dtype, b, s, t, h, kh, hd, causal, timed in cases:
         dt = getattr(torch, dtype)
         q = torch.randn(b, s, h, hd, generator=gen, device="cuda").to(dt)
         k = torch.randn(b, t, kh, hd, generator=gen, device="cuda").to(dt)
         v = torch.randn(b, t, kh, hd, generator=gen, device="cuda").to(dt)
+        kind = variant(dt, hd)
+        before = dict(ops.flash_attention.VARIANTS)
         out = ops.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        check(ops.flash_attention.VARIANTS[kind] == before[kind] + 1,
+              f"{dtype} hd {hd} did not go through the {kind} kernel")
         row = {"dtype": dtype, "shape": [b, s, t, h, kh, hd],
-               "causal": causal}
+               "causal": causal, "variant": kind}
         if dtype == "float32":
             plain = ref.flash_attention(q, k, v, causal=causal)
             err = (out - plain).abs().max().item()
@@ -211,7 +238,7 @@ def flash_phase():
             plain = ref.flash_attention(q.float(), k.float(), v.float(),
                                         causal=causal)
             err = row_rel_err(out, plain)
-            fault = skipped_tile_err(q, k, v, plain)
+            fault = skipped_tile_err(q, k, v, plain, causal)
             row.update(max_abs_err=(out.float() - plain).abs().max().item(),
                        row_rel_err=err, fault_row_rel_err=fault,
                        tol=BF16_ROW_TOL)
@@ -221,10 +248,19 @@ def flash_phase():
             gate = (f"row error vs plain on fp32 upcasts = {err!r} (tol "
                     f"{BF16_ROW_TOL}; a skipped K/V tile reads {fault!r}), "
                     f"max abs {row['max_abs_err']!r}")
-        print(f"kernels: flash_attention {dtype} B={b} S={s} T={t} H={h} "
-              f"K={kh} hd={hd} causal={causal}: {gate}")
+        print(f"kernels: flash_attention ({kind}) {dtype} B={b} S={s} T={t} "
+              f"H={h} K={kh} hd={hd} causal={causal}: {gate}")
         check(ok and out.isfinite().all().item(),
               f"flash_attention disagrees with its plain version: {row}")
+        if timed:
+            # the CUDA-core kernel on the same inputs, gated the same way
+            old = flash_attention_cuda(q, k, v, causal, kind="simt")
+            torch.cuda.synchronize()
+            row["simt_row_rel_err"] = row_rel_err(old, plain)
+            check(row["simt_row_rel_err"] <= BF16_ROW_TOL
+                  and old.isfinite().all().item(),
+                  f"the CUDA-core flash kernel disagrees: {row}")
+            del old
         del plain
         if timed:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -234,12 +270,15 @@ def flash_phase():
                     qt, kt, vt, is_causal=causal, enable_gqa=True)
 
             fns = {"ms": lambda: ops.flash_attention(q, k, v, causal=causal),
+                   "simt_ms": lambda: flash_attention_cuda(
+                       q, k, v, causal, kind="simt"),
                    "plain_ms": lambda: ref.flash_attention(q, k, v,
                                                            causal=causal),
                    "library_ms": library}
             lib_err = (library().transpose(1, 2).float()
                        - out.float()).abs().max().item()
-            # in turns: kernel, plain, library, then again in reverse
+            # in turns: kernel, CUDA-core kernel, plain, library, then
+            # again in reverse
             times = {key: [] for key in fns}
             for order in (list(fns), list(fns)[::-1]):
                 for key in order:
@@ -249,10 +288,12 @@ def flash_phase():
             row["library_vs_kernel_max_abs"] = lib_err
             row["bound_ms"], row["bound_by"] = attention_bound(
                 b, s, t, h, kh, hd, causal, dtype)
-            print(f"kernels: flash_attention {dtype} B={b} S={s}: kernel "
-                  f"{row['ms']!r} ms, plain {row['plain_ms']!r} ms, "
-                  f"sdpa {row['library_ms']!r} ms, bound {row['bound_ms']!r}"
-                  f" ms ({row['bound_by']})")
+            print(f"kernels: flash_attention {dtype} B={b} S={s} H={h} "
+                  f"K={kh} hd={hd}: tensor-core kernel {row['ms']!r} ms, "
+                  f"CUDA-core kernel {row['simt_ms']!r} ms (row error "
+                  f"{row['simt_row_rel_err']!r}), plain {row['plain_ms']!r} "
+                  f"ms, sdpa {row['library_ms']!r} ms, bound "
+                  f"{row['bound_ms']!r} ms ({row['bound_by']})")
         results.append(row)
         del q, k, v, out
     torch.cuda.empty_cache()
@@ -617,8 +658,12 @@ def serve_phase(arch: str, layers: int, d_model: int, per_batch: dict,
             batches0 = server.stats["batches"]
             for name in KERNELS:
                 getattr(ops, name).LAUNCHES = 0
+            kinds = ops.flash_attention.VARIANTS
+            for kind in kinds:
+                kinds[kind] = 0
             res = serve_mod.drive(server, args)
             counted = {name: getattr(ops, name).LAUNCHES for name in KERNELS}
+            by_kind = dict(kinds)
             batches = server.stats["batches"] - batches0
             for o in res["outs"]:
                 check(o.shape == (16,) and o.dtype == np.int32
@@ -631,12 +676,15 @@ def serve_phase(arch: str, layers: int, d_model: int, per_batch: dict,
                       f"{name} launches {counted[name]} != "
                       f"{per_batch[name]} x {batches} prefill batches")
                 launches[name] += counted[name]
+            # every prefill attention on the tensor-core kernel
+            check(by_kind == {"wgmma": counted["flash_attention"], "simt": 0},
+                  f"flash_attention kernels {by_kind}: not all tensor-core")
             dt = res["seconds"]
             print(f"serve: {arch} {mode} {n} x {plen}-token prompts, "
                   f"{res['tokens']} new tokens in {dt!r} s: "
                   f"{res['tokens'] / dt!r} tok/s, {dt / n * 1e3!r} ms/request"
-                  f", {batches} prefill batch(es), launches {counted} "
-                  f"({card})")
+                  f", {batches} prefill batch(es), launches {counted}, "
+                  f"flash_attention by kernel {by_kind} ({card})")
         print(f"serve: {arch} server stats {server.stats}; peak device "
               f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
               f"({card})")
@@ -705,7 +753,8 @@ def main() -> int:
         gc.collect()                       # free one model before the next
         torch.cuda.empty_cache()
 
-    def entry(name, source, replaces, row, checks, launches, per_batch):
+    def entry(name, source, replaces, row, checks, launches, per_batch,
+              **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "launches_per_batch": per_batch,
@@ -713,23 +762,33 @@ def main() -> int:
                 "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"], "dtype": row["dtype"],
-                "shape": row["shape"], "checks": checks}
+                "shape": row["shape"], **extra, "checks": checks}
 
     def timed(rows, **want):
         return next(r for r in rows if "ms" in r and all(
             r[k] == v for k, v in want.items()))
 
-    fa_src = ("src/repro_torch/kernels/csrc/flash_attention.cu",
+    # K2 on the served path is the tensor-core kernel; the CUDA-core one
+    # (fp32, bf16 at hd 16 and 32) is timed beside it on the same inputs
+    fa_src = ("src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
               "src/repro/kernels/flash_attention.py:70")
+
+    def fa_extra(row):
+        return {"variant": "wgmma", "cuda_core_ms": row["simt_ms"],
+                "cuda_core_source":
+                    "src/repro_torch/kernels/csrc/flash_attention.cu"}
+
+    granite = timed(flash, shape=[8, 1024, 1024, 32, 8, 128])
+    zamba = timed(flash, shape=[8, 1024, 1024, 32, 32, 80])
     kernels = [
-        entry("flash_attention", *fa_src,
-              timed(flash, shape=[8, 1024, 1024, 32, 8, 128]),
+        entry("flash_attention", *fa_src, granite,
               [r for r in flash if r["shape"][5] != 80],
-              served["granite-8b"]["flash_attention"], 36),
-        entry("flash_attention", *fa_src,
-              timed(flash, shape=[8, 1024, 1024, 32, 32, 80]),
+              served["granite-8b"]["flash_attention"], 36,
+              **fa_extra(granite)),
+        entry("flash_attention", *fa_src, zamba,
               [r for r in flash if r["shape"][5] == 80],
-              served["zamba2-2.7b"]["flash_attention"], 9),
+              served["zamba2-2.7b"]["flash_attention"], 9,
+              **fa_extra(zamba)),
         entry("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
               "src/repro/kernels/ssd_scan.py:67",
               timed(ssd, dtype="bfloat16", shape=[8, 1024, 80, 64, 1, 64,

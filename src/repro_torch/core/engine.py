@@ -79,12 +79,20 @@ class EngineStats(HybridPollStats):
 
 
 class TransferJob:
-    """Completion handle, backed by a copy-engine
-    :class:`~repro_torch.core.copyengine.CopyJob` when offloaded."""
+    """Completion handle (the paper's completion flag + job id), backed by
+    a copy-engine :class:`~repro_torch.core.copyengine.CopyJob` when
+    offloaded; an inline transfer has ``job_id`` -1."""
 
-    def __init__(self, job: Optional[CopyJob] = None, value: Any = None):
+    def __init__(self, nbytes: int, job: Optional[CopyJob] = None,
+                 value: Any = None):
+        self.nbytes = nbytes
         self._job = job
         self._value = value
+        self.job_id = job.job_id if job is not None else -1
+
+    def done(self) -> bool:
+        """True once the transfer's completion record is posted."""
+        return self._job is None or self._job.done()
 
     def get(self, timeout_s: float = 600.0) -> Any:
         """Hybrid-polling completion (deferral + short passive waits)."""
@@ -97,29 +105,46 @@ class TransferJob:
 class AsyncTransferEngine:
     """ROCKET tier-1 engine: modes sync / async / pipelined for host→device.
 
-    The staging copy and the device transfer run on the shared
-    :class:`~repro_torch.core.copyengine.CopyEngine` under the ``"stage"``
-    tag; ``copy_engine`` overrides the shared instance for tests;
-    ``latency`` is the model the completion waits defer by (a calibrated
-    one from :func:`~repro_torch.core.latency.calibrate`, else the paper's
-    constants).
+    The reference's arguments, in its order: ``latency`` is the model the
+    completion waits defer by (a calibrated one from
+    :func:`~repro_torch.core.latency.calibrate`, else the paper's
+    constants); ``put_fn(staged, sharding)`` replaces the device transfer
+    (the benchmarks' simulated copy engine); ``workers`` is accepted and
+    unused (the copy engine's pool is process-wide); ``stage=False`` hands
+    the caller's arrays to the transfer without the pooled staging copy;
+    ``copy_engine`` overrides the shared
+    :class:`~repro_torch.core.copyengine.CopyEngine` (staging and transfer
+    run on it under the ``"stage"`` tag).  ``device`` is the port's own:
+    the target of the default transfer.
     """
 
     def __init__(self, policy: OffloadPolicy = OffloadPolicy(),
-                 copy_engine: Optional[CopyEngine] = None, device="cuda",
-                 latency: Optional[LatencyModel] = None):
+                 latency: Optional[LatencyModel] = None,
+                 put_fn: Optional[Callable] = None,
+                 workers: int = 2, stage: bool = True,
+                 copy_engine: Optional[CopyEngine] = None, *,
+                 device="cuda"):
+        del workers                      # engine pool is process-wide
         self.device = resolve_device(device)
         self.policy = policy
         self.latency = latency or LatencyModel()
         cuda = self.device.type == "cuda"
         self.pool = BufferPool(alloc=_pinned_empty if cuda else np.empty)
         self.stats = EngineStats()
+        self._put = put_fn
+        self._stage = stage
         self._copyeng = copy_engine or get_engine()
         self._stream = torch.cuda.Stream(self.device) if cuda else None
         self._inflight: deque[TransferJob] = deque()
         self._lock = threading.Lock()
 
     def _device_copy(self, staged):
+        if self._put is not None:
+            out = self._put(staged, None)
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    torch.cuda.current_stream(t.device).synchronize()
+            return out
         if self._stream is None:
             # on the CPU from_numpy aliases host memory; force a real copy
             # so staging buffers can be recycled safely (as the JAX engine
@@ -149,6 +174,9 @@ class AsyncTransferEngine:
 
         def build() -> SGList:
             sg = SGList()
+            if not self._stage:
+                sg.ctx = batch
+                return sg
 
             def one(x):
                 arr = np.asarray(x)
@@ -161,8 +189,9 @@ class AsyncTransferEngine:
 
         def complete(sg: SGList):
             out = self._device_copy(sg.ctx)
-            # only now: the copy has landed (event waited above)
-            tree_map(self.pool.release, sg.ctx)
+            if self._stage:
+                # only now: the copy has landed (event waited above)
+                tree_map(self.pool.release, sg.ctx)
             return out
 
         return Descriptor(build=build, complete=complete, nbytes=nbytes,
@@ -170,7 +199,10 @@ class AsyncTransferEngine:
                           tag="stage")
 
     # -- submission ----------------------------------------------------------
-    def submit(self, batch) -> TransferJob:
+    def submit(self, batch, sharding=None) -> TransferJob:
+        if sharding is not None:
+            raise ValueError("sharding: the port moves a batch to one card; "
+                             "pass sharding=None")
         nbytes = _nbytes(batch)
         self.stats.submitted += 1
         self.stats.bytes_moved += nbytes
@@ -185,12 +217,12 @@ class AsyncTransferEngine:
             if len(sg):
                 self._copyeng.run_sg(sg, injection=descr.injection,
                                      tag=descr.tag)
-            return TransferJob(value=descr.complete(sg))
+            return TransferJob(nbytes, value=descr.complete(sg))
 
         self.stats.offloaded += 1
         cj = self._copyeng.submit(descr, wq=None, policy=self.policy,
                                   latency=self.latency, stats=self.stats)
-        job = TransferJob(job=cj)
+        job = TransferJob(nbytes, job=cj)
         if self.policy.mode == ExecutionMode.PIPELINED:
             with self._lock:
                 self._inflight.append(job)

@@ -25,11 +25,17 @@
 // Instantiated for hd 16, 32, 64, 80 and 128 (hd / 16 output columns a
 // thread).
 //
+// Which calls it serves: fp32 at every hd (the 2e-5 gate is beyond TF32
+// tensor cores) and bf16 at hd 16 and 32.  bf16 at hd 64, 80 and 128 --
+// every served prefill attention -- goes to the tensor-core kernel in
+// flash_attention_wgmma.cu; the choice is fixed by (dtype, hd) in
+// kernels/flash_attention.py::variant.
+//
 // Design: right and simple first.  Each of 256 threads computes a 4x4
 // register tile of the 64x64 score tile with fp32 FMAs (4-wide shared loads,
 // rows padded by 4 elements so the loads are free of bank conflicts), then
 // a 4 x hd/16 slice of the output.  No tensor cores, no TMA: far from the
-// compute bound above.  wgmma/TMA are later work.
+// compute bound above.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>

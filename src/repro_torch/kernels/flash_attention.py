@@ -1,10 +1,15 @@
-"""GQA flash attention forward on Hopper: the ctypes launcher of
-``csrc/flash_attention.cu``.
+"""GQA flash attention forward on Hopper: the ctypes launchers of
+``csrc/flash_attention_wgmma.cu`` (tensor cores) and
+``csrc/flash_attention.cu`` (CUDA cores).
 
-Replaces the TPU kernel ``src/repro/kernels/flash_attention.py``
-(``flash_attention_pallas``).  The CUDA source states the kernel's design
-and its bound on the card; :mod:`repro_torch.kernels.ops` is the wrapper
-that counts launches and picks this or the plain version by device.
+Both replace the TPU kernel ``src/repro/kernels/flash_attention.py``
+(``flash_attention_pallas``).  Which one serves a call is fixed by
+``(dtype, head_dim)`` (:func:`variant`): the tensor-core kernel takes bf16
+at hd 64, 80 and 128; the CUDA-core kernel takes fp32 at every hd (whose
+2e-5 gate TF32 cannot meet) and bf16 at hd 16 and 32.  It is a choice by
+shape, not a fallback.  The CUDA sources state each kernel's design and
+its bound on the card; :mod:`repro_torch.kernels.ops` is the wrapper that
+counts launches and picks the kernel or the plain version by device.
 """
 from __future__ import annotations
 
@@ -15,17 +20,35 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 80, 128)
+WGMMA_HEAD_DIMS = (64, 80, 128)
+VARIANTS = ("wgmma", "simt")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# what a negative return of the tensor-core launcher means
+_WGMMA_ERRORS = {-1: "the driver's cuTensorMapEncodeTiled is not reachable",
+                 -2: "a TMA tensor map was refused"}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("flash_attention")
-    fn = lib.repro_flash_attention_fwd
+def variant(dtype, head_dim: int) -> str:
+    """The kernel that serves ``(dtype, head_dim)``: ``"wgmma"`` (tensor
+    cores) for bf16 at hd 64, 80 and 128, else ``"simt"`` (CUDA cores)."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
+
+
+def _fn(kind: str):
+    """The C entry of ``kind``'s library, its argument types set."""
+    if kind == "wgmma":
+        fn = build.load("flash_attention_wgmma").repro_flash_attention_wgmma_fwd
+        ints = 7          # B, S, T, H, K, hd, causal
+    else:
+        fn = build.load("flash_attention").repro_flash_attention_fwd
+        ints = 8          # ... and the dtype
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * ints
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def check_inputs(q, k, v) -> None:
@@ -50,21 +73,36 @@ def check_inputs(q, k, v) -> None:
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} on {t.device}: the kernel needs all "
                              "inputs on one CUDA device")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned (TMA needs "
+                             "16-byte aligned bases)")
 
 
-def flash_attention_cuda(q, k, v, causal: bool = True) -> torch.Tensor:
-    """Launch the kernel on the current stream; returns o (B,S,H,hd)."""
+def flash_attention_cuda(q, k, v, causal: bool = True,
+                         kind: str | None = None) -> torch.Tensor:
+    """Launch a kernel on the current stream; returns o (B,S,H,hd).
+
+    ``kind`` is :func:`variant`'s choice unless named; ``"simt"`` takes
+    every ``(dtype, hd)``, ``"wgmma"`` only its own."""
+    hd = q.shape[-1]
+    kind = kind or variant(q.dtype, hd)
+    if kind not in VARIANTS:
+        raise ValueError(f"kernel {kind!r}: one of {VARIANTS}")
+    if kind == "wgmma" and variant(q.dtype, hd) != "wgmma":
+        raise ValueError(f"the tensor-core kernel takes bf16 at hd "
+                         f"{WGMMA_HEAD_DIMS}, not {q.dtype} at hd {hd}")
     check_inputs(q, k, v)
-    b, s, h, hd = q.shape
+    b, s, h, _ = q.shape
     t, kh = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
-    fn = _lib().repro_flash_attention_fwd
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            b, s, t, h, kh, hd]
+    if kind == "simt":
+        args.append(_DTYPES[q.dtype])
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 b, s, t, h, kh, hd, _DTYPES[q.dtype], int(causal),
-                 1.0 / float(hd) ** 0.5,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+        err = _fn(kind)(*args, int(causal), 1.0 / float(hd) ** 0.5,
+                        torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"flash attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash attention ({kind}) kernel launch failed: "
+                           + _WGMMA_ERRORS.get(err, f"CUDA error {err}"))
     return o

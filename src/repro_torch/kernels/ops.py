@@ -10,8 +10,11 @@ from __future__ import annotations
 
 from repro_torch.core.policy import ExecutionMode, OffloadPolicy
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import VARIANTS as FLASH_VARIANTS
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.offload_copy import offload_copy_cuda, ring_depth
+from repro_torch.kernels.flash_attention import variant as flash_variant
+from repro_torch.kernels.offload_copy import (MAX_DEPTH, offload_copy_cuda,
+                                              ring_depth)
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
 
@@ -24,6 +27,16 @@ def mode_depth(mode, depth: int = 2) -> int:
         ExecutionMode(mode).value]
 
 
+def kernel_depth(shape, mode, depth: int = 2, block_rows: int = 256) -> int:
+    """The ring the kernel runs for a slab of ``shape`` in ``mode``: the
+    mode's depth (:func:`mode_depth`), clamped to the slab's blocks as the
+    TPU kernel clamps it, and to the deepest ring the kernel is built for
+    (``MAX_DEPTH``).  y and the sum do not depend on it.  Raises on a shape
+    outside the slab contract."""
+    return min(ring_depth(shape, mode_depth(mode, depth), block_rows),
+               MAX_DEPTH)
+
+
 def offload_copy(x, scale: float = 1.0, out_dtype=None, depth: int = 2,
                  block_rows: int = 256, inject: bool = False,
                  policy: OffloadPolicy | None = None):
@@ -34,19 +47,18 @@ def offload_copy(x, scale: float = 1.0, out_dtype=None, depth: int = 2,
     Below ``policy.should_offload`` (or with ``Device.INLINE``) the copy
     stays inline: the plain version on x's device, counted in ``INLINE``
     (the paper's CPU-memcpy choice, made by the policy).  Otherwise the
-    mode picks the ring's depth (:func:`mode_depth`) and the slab must meet
-    the kernel's contract; a CUDA tensor launches the kernel (counted in
-    ``LAUNCHES``) or raises, a CPU tensor takes the plain version.  The sum
-    is taken when ``inject or policy.injection_enabled()``."""
+    mode picks the ring's depth (:func:`kernel_depth`) and the slab must
+    meet the kernel's contract; a CUDA tensor launches the kernel (counted
+    in ``LAUNCHES``) or raises, a CPU tensor takes the plain version.  The
+    sum is taken when ``inject or policy.injection_enabled()``."""
     pol = policy or OffloadPolicy()
     inject = inject or pol.injection_enabled()
     if not pol.should_offload(x.numel() * x.element_size()):
         offload_copy.INLINE += 1
         return ref.offload_copy(x, scale=scale, out_dtype=out_dtype,
                                 inject=inject)
-    ring = mode_depth(pol.mode, depth)
+    ring = kernel_depth(x.shape, pol.mode, depth, block_rows)
     if x.device.type == "cpu":
-        ring_depth(x.shape, ring, block_rows)
         return ref.offload_copy(x, scale=scale, out_dtype=out_dtype,
                                 inject=inject)
     out = offload_copy_cuda(x, scale=scale, out_dtype=out_dtype, depth=ring,
@@ -59,11 +71,16 @@ def flash_attention(q, k, v, causal: bool = True):
     """GQA attention: q (B,S,H,hd), k/v (B,T,K,hd) -> (B,S,H,hd).
 
     Causal masking is top-left aligned (key j visible to query i iff
-    j <= i), as in the TPU kernel it replaces."""
+    j <= i), as in the TPU kernel it replaces.  On the card the kernel is
+    fixed by ``(dtype, hd)`` (:func:`~repro_torch.kernels.flash_attention.
+    variant`); each launch is counted in ``LAUNCHES`` and under its kernel
+    in ``VARIANTS``."""
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal)
-    out = flash_attention_cuda(q, k, v, causal=causal)
+    kind = flash_variant(q.dtype, q.shape[-1])
+    out = flash_attention_cuda(q, k, v, causal=causal, kind=kind)
     flash_attention.LAUNCHES += 1
+    flash_attention.VARIANTS[kind] += 1
     return out
 
 
@@ -82,4 +99,5 @@ def ssd_scan(xh, bm, cm, dt, da, d_skip, chunk: int = 256):
 offload_copy.LAUNCHES = 0
 offload_copy.INLINE = 0
 flash_attention.LAUNCHES = 0
+flash_attention.VARIANTS = dict.fromkeys(FLASH_VARIANTS, 0)
 ssd_scan.LAUNCHES = 0

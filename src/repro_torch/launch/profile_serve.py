@@ -37,6 +37,7 @@ from repro_torch.serve.engine import PREFILL_RANGE
 
 TOP = 12
 # the port's hand-written kernels, by the names of their CUDA functions
+# ("flash_fwd" also matches the tensor-core "flash_fwd_wgmma")
 PORT_KERNELS = {"flash_attention": "flash_fwd", "ssd_scan": "ssd_fwd"}
 
 

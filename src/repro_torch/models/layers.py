@@ -172,8 +172,14 @@ def apply_mlp(params, x, cfg: ModelConfig):
         g = x @ params["wg"].to(x.dtype)
         u = x @ params["wu"].to(x.dtype)
         h = F.silu(g) * u
-    else:  # squared_relu, the other MLP of the dense configs
+    elif cfg.mlp_type == "squared_relu":
         h = F.relu(x @ params["wi"].to(x.dtype)).square()
+    elif cfg.mlp_type == "gelu":
+        # the tanh approximation, as jax.nn.gelu computes by default
+        h = F.gelu(x @ params["wi"].to(x.dtype), approximate="tanh")
+    else:
+        raise ValueError(f"mlp_type {cfg.mlp_type!r}: one of swiglu, "
+                         "squared_relu, gelu")
     return h @ params["wd"].to(x.dtype)
 
 

@@ -120,6 +120,66 @@ def test_flash_wrapper_raises_instead_of_falling_back(cuda_device):
         ops.flash_attention(q, k, v)
 
 
+def _row_err(got, want) -> float:
+    dev = (got.float() - want).abs().amax(-1)
+    return (dev / want.pow(2).mean(-1).sqrt()).max().item()
+
+
+@pytest.mark.parametrize("hd", [64, 80, 128])
+@pytest.mark.parametrize("s,t,h,kh,causal", [
+    (200, 200, 8, 8, True),      # ragged S = T, MHA
+    (200, 200, 8, 2, True),      # ragged S = T, GQA (H = 4K)
+    (512, 512, 8, 2, True),      # several K/V tiles through the ring
+    (64, 200, 8, 2, False),      # S < T
+    (256, 64, 8, 8, False),      # S > T
+    # more q tiles than the card has SMs: each block walks several items
+    (1000, 1000, 16, 4, True),
+    (512, 300, 32, 8, False),
+])
+def test_flash_tensor_core_kernel_matches_plain(cuda_device, hd, s, t, h, kh,
+                                                causal):
+    """bf16 at hd 64, 80, 128 goes through the tensor-core kernel (and
+    only it), within the bf16 row-error gate of the plain version on the
+    fp32 upcasts of the same inputs."""
+    q, k, v = (torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+               for x in _qkv(8, 2, s, t, h, kh, hd))
+    before = dict(ops.flash_attention.VARIANTS)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.VARIANTS == {
+        "wgmma": before["wgmma"] + 1, "simt": before["simt"]}
+    want = ref.flash_attention(q.float(), k.float(), v.float(), causal=causal)
+    assert got.isfinite().all()
+    assert _row_err(got, want) <= BF16_ROW_TOL
+
+
+@pytest.mark.parametrize("dtype,hd", [("bfloat16", 16), ("bfloat16", 32),
+                                      ("float32", 64), ("float32", 128)])
+def test_flash_other_shapes_take_the_cuda_core_kernel(cuda_device, dtype, hd):
+    q, k, v = (torch.from_numpy(x).to(cuda_device, getattr(torch, dtype))
+               for x in _qkv(9, 1, 128, 128, 4, 2, hd))
+    before = dict(ops.flash_attention.VARIANTS)
+    ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.VARIANTS == {
+        "wgmma": before["wgmma"], "simt": before["simt"] + 1}
+
+
+def test_flash_misaligned_input_raises(cuda_device):
+    """TMA needs 16-byte aligned bases: a contiguous view that starts one
+    element in raises before any launch."""
+    q, k, v = (torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+               for x in _qkv(10, 1, 128, 128, 4, 2, 128))
+    shifted = torch.empty(q.numel() + 8, device=cuda_device,
+                          dtype=torch.bfloat16)[1:1 + q.numel()].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = dict(ops.flash_attention.VARIANTS)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(shifted, k, v)
+    assert ops.flash_attention.VARIANTS == before
+
+
 @pytest.mark.parametrize("mode", ["sync", "async", "pipelined"])
 def test_engine_lands_every_batch(cuda_device, mode):
     """Many batches through pinned pooled buffers and the side stream: each
@@ -208,3 +268,16 @@ def test_offload_wrapper_raises_instead_of_falling_back(cuda_device, make):
     with pytest.raises((ValueError, TypeError)):
         ops.offload_copy(x, policy=OffloadPolicy(offload_threshold_bytes=1))
     assert ops.offload_copy.LAUNCHES == launches
+
+
+def test_offload_wrapper_clamps_a_deep_pipelined_ring(cuda_device):
+    """``pipelined`` at depth 16 on a slab of 4,096 rows (16 blocks of 256):
+    the wrapper clamps the ring at the kernel's deepest, and y is bit-equal
+    to the plain version."""
+    x = _offload_slab(cuda_device, "float32", 4096, 256)
+    launches = ops.offload_copy.LAUNCHES
+    y, _ = ops.offload_copy(x, scale=0.1, depth=16, policy=OffloadPolicy(
+        mode=ExecutionMode.PIPELINED, offload_threshold_bytes=1))
+    torch.cuda.synchronize()
+    assert ops.offload_copy.LAUNCHES == launches + 1
+    assert torch.equal(_bits(y), _bits(ref.offload_copy(x, scale=0.1)[0]))

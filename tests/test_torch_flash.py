@@ -10,7 +10,8 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention_cuda,
+                                                 variant)
 
 # one torch thread: the suite runs in parallel workers beside timing-
 # sensitive multi-process tests
@@ -116,3 +117,42 @@ def test_kernel_launcher_validates_inputs(bad, err):
         q = q[:, :, :3]
     with pytest.raises((ValueError, TypeError), match=err):
         flash_attention_cuda(q.contiguous() if bad != "contig" else q, k, v)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_the_kernel_is_fixed_by_dtype_and_head_dim(dtype, hd):
+    """Tensor cores for bf16 at hd 64, 80, 128; CUDA cores for fp32 (whose
+    2e-5 gate TF32 cannot meet) and bf16 at hd 16, 32."""
+    want = ("wgmma" if dtype == "bfloat16" and hd in (64, 80, 128)
+            else "simt")
+    assert variant(getattr(torch, dtype), hd) == want
+
+
+def test_the_tensor_core_kernel_refuses_other_shapes():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(6, 1, 64, 64, 4, 2, 128))
+    with pytest.raises(ValueError, match="tensor-core"):
+        flash_attention_cuda(q, k, v, kind="wgmma")          # fp32
+    with pytest.raises(ValueError, match="one of"):
+        flash_attention_cuda(q, k, v, kind="tensor")
+
+
+@pytest.mark.parametrize("hd", [64, 80, 128])
+def test_cpu_bf16_tensors_take_the_plain_path_and_launch_nothing(hd):
+    """bf16 at the tensor-core kernel's head dims, on the CPU: the plain
+    version, within the bf16 bound of the JAX reference, and no launch
+    of either kernel."""
+    q, k, v = _qkv(7, 1, 96, 96, 4, 2, hd)
+    qt, kt, vt = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    launches, variants = (ops.flash_attention.LAUNCHES,
+                          dict(ops.flash_attention.VARIANTS))
+    out = ops.flash_attention(qt, kt, vt, causal=True)
+    assert ops.flash_attention.LAUNCHES == launches
+    assert ops.flash_attention.VARIANTS == variants
+    torch.testing.assert_close(out, ref.flash_attention(qt, kt, vt),
+                               rtol=0, atol=0)
+    qj, kj, vj = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(jref.flash_attention(qj, kj, vj, causal=True),
+                      np.float32)
+    np.testing.assert_allclose(out.float().numpy(), want, rtol=BF16_TOL,
+                               atol=BF16_TOL)

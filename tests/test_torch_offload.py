@@ -212,6 +212,26 @@ def test_the_kernel_takes_the_deepest_ring_it_is_built_for():
         check_inputs(x, x.dtype, MAX_DEPTH, 1)
 
 
+def test_a_deep_pipelined_ring_is_clamped_to_the_kernel():
+    """``pipelined`` at depth 16 on a slab of 4,096 rows (16 blocks of 256):
+    y and the sum equal the JAX package's, and the ring the wrapper hands
+    the kernel is clamped at the deepest it is built for, so the launcher
+    takes it (every check up to the device passes)."""
+    xt, xj = _slab("float32", (4096, 256), seed=4)
+    pol = OffloadPolicy(mode=ExecutionMode.PIPELINED,
+                        offload_threshold_bytes=1)
+    jpol = JaxPolicy(mode=JaxMode.PIPELINED, offload_threshold_bytes=1)
+    y, s = ops.offload_copy(xt, scale=0.1, depth=16, inject=True, policy=pol)
+    jy, js = jops.offload_copy(xj, scale=0.1, depth=16, inject=True,
+                               policy=jpol)
+    np.testing.assert_array_equal(bits(y), bits(jy))
+    assert sum_ok(s, js)
+    ring = ops.kernel_depth(xt.shape, pol.mode, 16, 256)
+    assert ring == MAX_DEPTH
+    with pytest.raises(ValueError, match="CUDA"):
+        check_inputs(xt, xt.dtype, ring, 256)
+
+
 def _jax_engine_stats(policy, payloads):
     with JaxEngine(policy) as eng:
         for j in [eng.submit(p) for p in payloads]:
